@@ -1,12 +1,11 @@
-"""edipack_tpu — a TPU-native exact-diagonalization engine for quantum impurity
-problems (the capabilities of EDIpack, re-designed for JAX/XLA/Pallas/pjit).
+"""edipack_tpu — an accelerator exact-diagonalization engine for quantum
+impurity problems (the capabilities of EDIpack, re-designed for JAX/XLA).
 
 Design stance (vs the Fortran+MPI reference at EDIpack v6.1.0):
 
 * Sector vectors in the *normal* mode are dense matrices ``V[DimDw, DimUp]``
   (× phonon axis) and every Hamiltonian term is a Kronecker factor
-  ``A_up ⊗ B_dw``; the matvec is a handful of dense matmuls that run on the
-  MXU instead of the reference's row-loop CSR SpMV
+  ``A_up ⊗ B_dw``; the matvec is a handful of dense matmuls instead of the reference's row-loop CSR SpMV
   (cf. reference ED_NORMAL/ED_HAMILTONIAN_NORMAL_STORED_HxV.f90).
 * superc/nonsu2 joint sectors use padded-ELL sparse matvec + dense fallback.
 * Sector enumeration / term generation is vectorized host-side (NumPy / C++),

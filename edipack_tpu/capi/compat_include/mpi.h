@@ -1,5 +1,5 @@
 /* Minimal single-process MPI shim for building the reference's example
- * drivers in environments without MPI development headers.  The TPU build
+ * drivers in environments without MPI development headers.  This engine
  * has no MPI runtime — parallelism is jax.sharding over the device mesh —
  * so reference drivers' MPI calls reduce to single-rank no-ops (rank 0,
  * size 1, broadcasts and reductions are identities).  Header-only; only

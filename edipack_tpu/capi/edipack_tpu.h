@@ -1,6 +1,6 @@
 /* C API for edipack_tpu — the analog of the reference's
  * src/c_bindings/edipack_cbindings.h: lets C/C++/Fortran drivers run the
- * TPU-native solver. Implemented by libedipack_tpu_c.so (embedded CPython;
+ * JAX solver. Implemented by libedipack_tpu_c.so (embedded CPython;
  * build with `make -C edipack_tpu/capi`).
  *
  * Array conventions follow the reference bindings: the packed bath vector is

@@ -33,16 +33,25 @@ const char *edtpu_last_error(void) { return g_err; }
 int edtpu_init(void) {
   if (g_mod) return 0;
   if (!Py_IsInitialized()) Py_Initialize();
-  /* EDIPACK_TPU_PLATFORM=cpu|tpu pins the JAX backend of the embedded
-   * interpreter.  Needed because site hooks of managed environments may
-   * override the standard JAX_PLATFORMS env var after Py_Initialize. */
+  /* EDIPACK_TPU_PLATFORM=cpu|gpu|cuda pins the JAX backend of the embedded
+   * interpreter (unset: JAX's default device).  Any other value is refused
+   * before it reaches Python. */
   const char *plat = getenv("EDIPACK_TPU_PLATFORM");
   if (plat && plat[0]) {
-    char buf[256];
+    if (strcmp(plat, "cpu") && strcmp(plat, "gpu") && strcmp(plat, "cuda")) {
+      snprintf(g_err, sizeof g_err,
+               "EDIPACK_TPU_PLATFORM must be cpu, gpu or cuda (got '%.64s')",
+               plat);
+      return -1;
+    }
+    char buf[128];
     snprintf(buf, sizeof buf,
-             "import jax\njax.config.update('jax_platforms', '%.32s')\n",
-             plat);
-    PyRun_SimpleString(buf);
+             "import jax\njax.config.update('jax_platforms', '%s')\n", plat);
+    if (PyRun_SimpleString(buf) != 0) {
+      snprintf(g_err, sizeof g_err,
+               "could not select JAX platform '%s'", plat);
+      return -1;
+    }
   }
   g_mod = PyImport_ImportModule("edipack_tpu");
   if (!g_mod) {

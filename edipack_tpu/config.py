@@ -166,15 +166,13 @@ class EDConfig:
     print_sector_eigenvalues: bool = True
     logfile: int = 6
 
-    # ---- TPU-native additions (no reference counterpart)
+    # ---- additions of this engine (no reference counterpart)
     ed_precision: str = "float64"   # float64 | float32 : dtype of the matvec path
-    # TPU f64 matmuls are VPU-emulated (~70x slower than f32); "auto" runs
-    # large-sector Lanczos matvecs in double-single f32 on the MXU (~3e-7
-    # matvec error) with an exact f64 Rayleigh-Ritz refinement of the
-    # converged subspace. "always"/"never" override; GF moments stay exact
-    # f64 unless ed_mixed_gf.
+    # "always" runs Lanczos matvecs in double-single f32 (~3e-7 matvec
+    # error) with an exact f64 Rayleigh-Ritz refinement of the converged
+    # subspace; "auto" and "never" run native f64 (c128 in the joint
+    # modes). GF moments stay exact f64 unless ed_mixed_gf.
     ed_mixed_matvec: str = "auto"   # auto | always | never
-    ed_fused_matvec: str = "auto"   # fused Pallas sector matvec: auto | never
     # GF tridiagonalization also runs on the split-f32 matvec where the
     # matvec is mixed: the ~3e-7 matvec noise enters poles/weights at
     # ~1e-6*||H|| — far below the spectral broadening (eps default 1e-2).
@@ -183,15 +181,15 @@ class EDConfig:
     ed_dense_factors: bool = True   # normal mode: dense spin-factor matmul path
     ed_batch_dense: bool = True     # batch small sectors into one padded eigh
     # lockstep-batch same-shape Lanczos sectors (cross-site and PH partners)
-    # into single vmapped DS-sweep launches (diag.py; TPU upgrade of the
+    # into single vmapped DS-sweep launches (diag.py; batched form of the
     # reference's serial sector loop, ED_DIAG_NORMAL.f90:108)
     ed_batch_lanczos: bool = True
     ed_file_suffix: str = ""        # per-site suffix (ineq extension)
     ed_output_dir: str = "."        # where .ed text outputs are written
     ed_write_files: bool = False    # write observables_*.ed etc. text files
-    ed_joint_kron: str = "auto"     # superc/nonsu2 matvec: blocked-Kron
-    #                                 operator ("auto": on TPU single-device;
-    #                                 "always"; "never" = sorted padded-ELL)
+    ed_joint_kron: str = "auto"     # superc/nonsu2 matvec: "always" =
+    #                                 blocked-Kron operator; "auto"/"never"
+    #                                 = sorted padded-ELL (solver/select.py)
     ed_profile_dir: str = ""        # write a JAX profiler trace of each
     #                                 solve here (view with tensorboard /
     #                                 xprof; EDIPACK_TPU_PROFILE_DIR env
@@ -250,8 +248,6 @@ class EDConfig:
             raise ValueError("cg_stop must be 0, 1 or 2")
         if self.ed_mixed_matvec not in ("auto", "always", "never"):
             raise ValueError("ed_mixed_matvec must be auto|always|never")
-        if self.ed_fused_matvec not in ("auto", "always", "never"):
-            raise ValueError("ed_fused_matvec must be auto|always|never")
         if self.jz_basis:
             if self.ed_mode != "nonsu2":
                 raise ValueError("jz_basis requires ed_mode=nonsu2")

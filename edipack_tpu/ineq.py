@@ -7,7 +7,7 @@ impurity problems per DMFT iteration, with per-site interaction overrides
 (E2I_AUX_FUNX ed_set_Hloc lattice overloads) and batched getters over the
 leading Nineq axis (E2I_IO/*).
 
-TPU-native design: sites are a leading batch axis; the per-site solves
+Design: sites are a leading batch axis; the per-site solves
 share one process (the reference round-robins sites over MPI ranks,
 E2I_MAIN.f90:253-296 — here small sectors already batch on-chip and the
 mesh 'site' axis shards sites).
@@ -59,7 +59,7 @@ class EDIneqSolver:
         Normal mode runs all sites as ONE batched sweep
         (solve_impurity_sites): every site's small sectors join the same
         padded eigh buckets, data-parallel over the device mesh — the
-        TPU-native form of the reference's site-over-ranks round robin.
+        batched form of the reference's site-over-ranks round robin.
         Joint modes (superc/nonsu2) fall back to the per-site loop."""
         for n, s in enumerate(self.solvers):
             over = {}

@@ -131,7 +131,7 @@ class EDSolver:
             # The reference's _CMPLX_NORMAL build variant supports complex
             # normal-mode Hamiltonians (ED_VARS_GLOBAL.f90:111-122,
             # ED_GF_NORMAL.f90:180-280).  Here the normal-mode operators
-            # are real-by-design (factor-based real f64 Kron/Pallas path);
+            # are real-by-design (factor-based real f64 Kron path);
             # a complex spin-diagonal Hloc is AUTOMATICALLY routed through
             # the nonsu2 joint solver at solve time — identical physics
             # ((N↑,N↓) remains conserved; nonsu2 merely does not exploit

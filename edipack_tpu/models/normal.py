@@ -1,11 +1,10 @@
-"""Normal-mode sector Hamiltonian as Kronecker factors (TPU-first design).
+"""Normal-mode sector Hamiltonian as Kronecker factors.
 
 The reference assembles per-sector CSR blocks ``H = H_d ⊕ (I⊗H_up) ⊕ (H_dw⊗I)
 ⊕ H_nd ⊕ phonons`` and row-loops a sparse matvec
 (ED_NORMAL/ED_HAMILTONIAN_NORMAL_STORED_HxV.f90). Here the sector vector is a
 dense tensor ``V[DimPh, DimDw, DimUp]`` and *every* term is a Kronecker factor,
-so the matvec is a handful of dense matmuls on small spin-factor matrices that
-run on the MXU:
+so the matvec is a handful of dense matmuls on small spin-factor matrices:
 
     H·V = D ⊙ V  +  V @ Hupᵀ  +  Hdw @ V  +  Σ_k B_k @ V @ A_kᵀ
         + ph_diag ⊙ V + X ⊗ (E·V)                           (phonon terms)
@@ -47,9 +46,6 @@ class NormalSectorOp:
     hdw: np.ndarray                # (DimDw, DimDw)
     nl_perm: Optional[Tuple[np.ndarray, np.ndarray,
                             np.ndarray, np.ndarray]] = None
-    # low-rank diagonal factors (ddw, dup, adw, bup): D = ddw (+) dup + adw@bup^T
-    d_factors: Optional[Tuple[np.ndarray, np.ndarray,
-                              np.ndarray, np.ndarray]] = None
     # phonons (None when nph == 0)
     ph_mat: Optional[np.ndarray] = None    # (DimPh, DimPh) w0 b†b + A(b+b†)
     ph_x: Optional[np.ndarray] = None      # (DimPh, DimPh) displacement b+b†
@@ -325,10 +321,6 @@ def build_normal_sector_op(cfg: EDConfig, sec: Sector, hloc: np.ndarray,
     # cross-spin density-density: Σ_ab (δ_ab uloc_a + ust_ab) ndw_b nup_a
     mx = np.diag(um.uloc) + ust_nd
     d = d_dw[:, None] + d_up[None, :] + const + o_dw @ mx @ o_up.T
-    # low-rank factorization of the diagonal (consumed by ops.fused_normal:
-    # D = ddw (+) dup + adw @ bup^T), avoids storing/streaming the dense
-    # (DimDw, DimUp) diagonal in the fused device kernel
-    d_factors = (d_dw + const, d_up, o_dw @ mx, o_up)
 
     # ---- non-local Kronecker factors ---------------------------------
     nl_a: List[np.ndarray] = []
@@ -365,7 +357,6 @@ def build_normal_sector_op(cfg: EDConfig, sec: Sector, hloc: np.ndarray,
                    np.stack([s for s, _ in nl_b]),
                    np.stack([g for _, g in nl_b]))
     op = NormalSectorOp(sector=sec, d=d, hup=hup, hdw=hdw, nl_perm=nl_perm)
-    op.d_factors = d_factors
 
     # ---- phonons ------------------------------------------------------
     if cfg.nph > 0:

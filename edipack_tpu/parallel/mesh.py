@@ -1,12 +1,13 @@
-"""Multi-chip sharding of the sector matvec.
+"""Multi-device sharding of the sector matvec.
 
 Design (SURVEY.md §2.4): the reference's MPI decomposition of the normal-mode
 matvec shards the dw index of V[iup, idw] across ranks and alternates layouts
 with an MPI_AlltoAllV vector transpose (ED_HAMILTONIAN_NORMAL_COMMON.f90:
-66-167). TPU-native: V[ph, dw, up] carries a NamedSharding over the 'dw'
+66-167). Here V[ph, dw, up] carries a NamedSharding over the 'dw'
 mesh axis; `V @ Hupᵀ` is embarrassingly local, and the dw-contraction
-`Hdw @ V` lowers to XLA collectives over ICI inserted by GSPMD — the
-all-to-all is implicit in the sharding propagation, not hand-written.
+`Hdw @ V` lowers to XLA collectives inserted by GSPMD (an all-gather in the
+compiled matvec, not the reference's all-to-all) — implicit in the sharding
+propagation, not hand-written.
 
 A second mesh axis 'sec' batches independent small sectors (the reference
 runs sectors serially; here they are data-parallel).
@@ -37,7 +38,7 @@ def make_mesh(n_devices: Optional[int] = None, sec_axis: int = 1,
 
 
 def sector_sharding(mesh: Mesh) -> NamedSharding:
-    """Sharding of a sector tensor V[ph, dw, up]: dw sharded over ICI."""
+    """Sharding of a sector tensor V[ph, dw, up]: dw sharded over devices."""
     return NamedSharding(mesh, P(None, "dw", None))
 
 
@@ -65,11 +66,11 @@ def joint_sharding(mesh: Mesh) -> NamedSharding:
 def shard_joint_matvec(mv, mesh: Mesh):
     """Row-split a JointMatvec's padded-ELL tables over the 'dw' mesh axis.
 
-    TPU-native form of the reference's superc/nonsu2 1-D row decomposition
+    Sharded form of the reference's superc/nonsu2 1-D row decomposition
     (ED_SUPERC/ED_HAMILTONIAN_SUPERC_STORED_HxV.f90:366-432): each device
     owns a contiguous block of electronic rows of (cols, vals); the input
     vector gather `take(v, cols, axis=1)` makes GSPMD insert the all-gather
-    of v over ICI (the MPI_Allgatherv equivalent), after which the ELL
+    of v (the MPI_Allgatherv equivalent), after which the ELL
     contraction is local. Phonon/e-ph operators stay replicated (they act on
     the un-sharded phonon axis or via an el-contraction GSPMD reshards)."""
     import jax.numpy as jnp

@@ -2,13 +2,13 @@
 
 Parity target: reference ED_DIAG.f90 + ED_DIAG_NORMAL.f90 (:76-296 sweep,
 solver choice :119-252, post-diag trimming and adaptive neigen feedback
-:382-519). TPU upgrades over the reference:
+:382-519). Departures from the reference:
 
 * small sectors are *batched*: all dims ≤ lanc_dim_threshold are padded into
   shape buckets and diagonalized with one batched `jnp.linalg.eigh` per
   bucket (the reference LAPACK path is one sector at a time on the master
   rank);
-* large sectors run restarted deflated Lanczos with the jitted MXU matvec;
+* large sectors run restarted deflated Lanczos with the jitted sector matvec;
 * multiple impurity *sites* (real-space DMFT, reference E2I_MAIN.f90:253-296
   round-robins sites over MPI ranks) batch into the same buckets: the
   (site, sector) product is one data-parallel eigh sharded over the device
@@ -44,7 +44,7 @@ class DiagResult:
 
 
 def _pad_pow2_bucket(dim: int) -> int:
-    """Bucket size: next power of two (bounded recompilation, good MXU tiles)."""
+    """Bucket size: next power of two (bounded recompilation)."""
     b = 8
     while b < dim:
         b *= 2
@@ -63,7 +63,7 @@ def diagonalize_sites(cfg: EDConfig, table: SectorTable,
     ``cfg``; per-site physics (Hloc, bath, U) lives in the builders.  Small
     sectors from EVERY site are padded into shared shape buckets and solved
     by one batched eigh per bucket, sharded over the device mesh — the
-    TPU-native form of the reference's site-over-ranks round robin
+    batched form of the reference's site-over-ranks round robin
     (E2I_MAIN.f90:253-296) fused with its sector loop
     (ED_DIAG_NORMAL.f90:225-250).
 
@@ -285,7 +285,7 @@ def _sanitize_mv(cfg: EDConfig, i: int, mv) -> None:
     is symmetric/Hermitian on a random pair — <u, Hv> == <Hu, v> — which
     catches term sign/layout bugs at the operator level before they
     surface as wrong physics.  Tolerance is set by the DS matvec noise
-    floor (~3e-7 relative, docs/benchmarks.md)."""
+    floor (~3e-7 relative)."""
     rng = np.random.default_rng(1234 + i)
     dt = getattr(mv, "dtype", jnp.float64)
     cplx = jnp.issubdtype(dt, jnp.complexfloating)
@@ -359,6 +359,11 @@ def _lanczos_solve_sector(cfg: EDConfig, table: SectorTable, i: int,
     conv = getattr(mv, "from_internal_flat", None)
     for j in range(len(vals)):
         vec = conv(vecs[j]) if conv is not None else vecs[j]
+        if refine is None and vec.dtype != mv.dtype:
+            # unrefined huge sectors return their f32/c64 Krylov storage
+            # precision (ops.lanczos.F32_BASIS_MIN_DIM); states enter the
+            # list at the operator's dtype so GF chains stay in one dtype
+            vec = vec.astype(mv.dtype)
         sl.add(EigenState(float(vals[j]), i, vec))
 
 

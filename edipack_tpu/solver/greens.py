@@ -132,13 +132,13 @@ def _moments_from_phi(matvec, phi, m: int, dense_eig=None):
         return w[keep], evals[keep]
     m = max(2, m)
     if hasattr(matvec, "to_internal_flat"):
-        # fused-kernel matvec: Krylov runs in the padded imp-MSB internal
-        # layout; the conversion is a norm-preserving permutation+padding
+        # blocked-layout operator (models.joint_kron): Krylov runs in its
+        # internal layout; the conversion is a norm-preserving
+        # permutation+padding
         phi = matvec.to_internal_flat(jnp.asarray(phi))
     if hasattr(matvec, "pair") and getattr(matvec, "ds_recurrence_ok", True):
-        # double-single operator (TPU): f32 recurrence + f64-accumulated
-        # dots — the f64 variant's emulated elementwise body costs ~27x the
-        # matvec on large sectors (ops.lanczos.lanczos_tridiag_ds)
+        # double-single operator: f32 recurrence + f64-accumulated dots
+        # (ops.lanczos.lanczos_tridiag_ds)
         from ..ops.lanczos import lanczos_tridiag_ds
         alphas, betas, norm0 = lanczos_tridiag_ds(matvec, phi, m)
     else:
@@ -183,7 +183,7 @@ def _moments_from_phis(matvec, phis, m: int):
     B tridiagonal chains run in ONE vmapped launch
     (ops.lanczos.lanczos_tridiag_batch); the small (B, m) tridiagonals are
     solved host-side. Falls back to per-phi launches for internal-layout
-    (fused-kernel) operators, whose pallas matvec does not batch."""
+    (blocked-Kron) operators."""
     from ..ops.lanczos import (lanczos_tridiag_batch, lanczos_tridiag_ds_batch,
                                _j_stack)
     m = max(2, m)

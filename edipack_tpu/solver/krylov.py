@@ -171,9 +171,9 @@ def result_matvec(result, sec):
 
 class _OpVector:
     """Sector-blocked operator |O) = {(lsec, rsec): dense block}, the
-    TPU counterpart of the reference koc_vector_normal
+    device counterpart of the reference koc_vector_normal
     (ED_NORMAL/ED_KRYLOV_NORMAL.f90:23-32): blocks are dense device
-    matrices so the Liouvillian is two MXU matmuls per block."""
+    matrices so the Liouvillian is two matmuls per block."""
 
     def __init__(self, blocks=None):
         self.blocks = blocks or {}

@@ -22,16 +22,19 @@ import sys
 
 import numpy as np
 
-# keep this example deterministic on machines whose default JAX backend is
-# a remote accelerator: the single-band problem is tiny
 import jax
-
-if os.environ.get("HM_BETHE_CPU", "1") != "0":
-    jax.config.update("jax_platforms", "cpu")
 
 from edipack_tpu import (ed_chi2_fitgf, ed_get_dens, ed_get_gimp,
                          ed_get_sigma, ed_init_solver, ed_read_input,
                          ed_set_hloc, ed_solve)
+from edipack_tpu.utils.jax_cache import enable_compile_cache
+
+# the default JAX device runs the loop; HM_BETHE_CPU=1 pins the host CPU
+# (uncached, as the CPU test suite: see tests/conftest.py)
+if os.environ.get("HM_BETHE_CPU", "0") == "1":
+    jax.config.update("jax_platforms", "cpu")
+else:
+    enable_compile_cache()
 
 # ---- model / loop parameters ---------------------------------------------
 WBAND = 1.0          # half-bandwidth D of the semicircular DOS

@@ -180,3 +180,46 @@ def test_capihelp_ineq_and_replica_helpers(tmp_path):
     ed.ed_set_hloc(np.zeros((1, 1)))
     res = ed.ed_solve(bath)
     assert res.e0 < 0
+
+
+INIT_DRIVER = r"""
+#include <stdio.h>
+#include "edipack_tpu.h"
+int main(void) {
+  if (edtpu_init()) { printf("ERR %s\n", edtpu_last_error()); return 1; }
+  printf("OK\n");
+  edtpu_finalize();
+  return 0;
+}
+"""
+
+
+@pytest.mark.skipif(not os.path.exists(os.path.join(CAPI, "edipack_tpu.h")),
+                    reason="capi sources missing")
+@pytest.mark.parametrize("platform,accepted", [
+    ("cpu", True), ("rocm", False), ("cpu'); import os; ('", False)])
+def test_c_platform_variable_is_validated(tmp_path, platform, accepted):
+    """EDIPACK_TPU_PLATFORM takes cpu|gpu|cuda; anything else makes
+    edtpu_init fail with the reason in edtpu_last_error()."""
+    r = subprocess.run(["make", "-C", CAPI, "-s"], capture_output=True)
+    if r.returncode != 0:
+        pytest.skip(f"capi build failed: {r.stderr.decode()[:200]}")
+    src = tmp_path / "init.c"
+    src.write_text(INIT_DRIVER)
+    exe = tmp_path / "init"
+    r = subprocess.run(
+        ["gcc", "-O2", "-I", CAPI, "-o", str(exe), str(src),
+         "-L", CAPI, "-ledipack_tpu_c", f"-Wl,-rpath,{CAPI}"],
+        capture_output=True)
+    if r.returncode != 0:
+        pytest.skip(f"driver build failed: {r.stderr.decode()[:200]}")
+    env = dict(os.environ, PYTHONPATH=REPO, EDIPACK_TPU_PLATFORM=platform)
+    out = subprocess.run([str(exe)], capture_output=True, env=env,
+                         timeout=300, cwd=str(tmp_path))
+    text = out.stdout.decode()
+    if accepted:
+        assert out.returncode == 0 and "OK" in text, \
+            text + out.stderr.decode()[-300:]
+    else:
+        assert out.returncode == 1
+        assert "EDIPACK_TPU_PLATFORM must be cpu, gpu or cuda" in text

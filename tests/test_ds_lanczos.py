@@ -1,9 +1,9 @@
 """Double-single (f32-pair) Lanczos recurrences vs exact f64.
 
 The DS paths (ops.lanczos.lanczos_tridiag_ds / lanczos_sweep_ds) are the
-TPU production drivers: f32 recurrence vectors + f64-chunk-accumulated
+ed_mixed_matvec=always drivers: f32 recurrence vectors + f64-chunk-accumulated
 inner products, fed by pair() operators (ops.matvec.MixedKronMatvec,
-ops.pallas_fused.MixedFusedKron).  Reference parity target: the GF
+models.joint_kron.MixedJointKron).  Reference parity target: the GF
 tridiagonalization and eigensolver of ED_GF_NORMAL.f90 /
 ED_DIAG_NORMAL.f90 at its 1e-8-relative golden tolerances.
 """
@@ -93,7 +93,7 @@ def test_tridiag_ds_batch(ops_pair):
 
 def test_eigsh_ds_sweeps_with_exact_refine(ops_pair):
     """DS Lanczos sweeps + cluster polish must deliver f64 eigenvalues
-    (the production TPU diagonalization path, ED_DIAG parity)."""
+    (the ed_mixed_matvec=always diagonalization path, ED_DIAG parity)."""
     exact, mixed = ops_pair
     vals_ds, vecs_ds = eigsh_lowest(mixed, mixed.dim, 2, dtype=jnp.float64,
                                     m=48, tol=2e-6, max_restarts=10,

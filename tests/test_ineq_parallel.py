@@ -3,7 +3,7 @@
 
 Runs on the 8-virtual-device CPU mesh (conftest), so the shared dense-eigh
 buckets are genuinely sharded over devices with multiple sites per bucket —
-the TPU-native form of the reference's site-over-MPI-ranks round robin
+the batched form of the reference's site-over-MPI-ranks round robin
 (E2I_MAIN.f90:253-296)."""
 import numpy as np
 

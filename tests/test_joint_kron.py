@@ -1,6 +1,6 @@
 """Blocked-Kronecker joint operator == sorted COO/ELL operator, exactly.
 
-The blocked-Kron matvec (models/joint_kron.py) is the TPU-native
+The blocked-Kron matvec (models/joint_kron.py) is the factorized
 superc/nonsu2 Hamiltonian; its dense matrix, conjugated by the
 sorted<->blocked permutation, must reproduce build_joint_sector_op's dense
 matrix for every term class: pairing (Δ bath, deltasc, anomalous Hloc,
@@ -216,7 +216,7 @@ def test_solve_mixed_joint_smoke():
                     jp=0.2, spin_field_x=[0.1, 0.05], xmu=0.4)),
 ])
 def test_solve_mixed_joint_full(mode, kw):
-    """PRODUCTION TPU path on CPU, full two-orbital matrix: the
+    """ed_mixed_matvec=always joint path, full two-orbital matrix: the
     real-embedded DS operator through the whole solve (slow: every joint
     sector shape compiles its DS sweep/tridiag; jax caches are cleared
     between variants to dodge the jaxlib live-executable segfault)."""
@@ -242,8 +242,8 @@ def test_solve_mixed_joint_full(mode, kw):
 
 
 def test_mixed_joint_kron_ds_parity():
-    """MixedJointKron (real-embedded DS pair operator; this TPU stack has
-    no c128 at all): exact f64 real-split application == the c128 operator;
+    """MixedJointKron (real-embedded DS pair operator, no c128 operand):
+    exact f64 real-split application == the c128 operator;
     the DS pair matches to ~1e-6; DS Lanczos + exact polish reaches f64
     eigenvalues WITHOUT J-duplicates (each complex state is a 2D real
     eigenspace, deflated via jmap)."""

@@ -1,7 +1,7 @@
 """Mixed-precision (double-single f32) matvec path + exact Rayleigh-Ritz
-refinement: TPU f64 matmuls are emulated and ~70x slower than f32, so large
--sector Lanczos runs on a split-f32 MXU matvec (MixedKronMatvec) and the
-converged subspace is re-diagonalized with exact f64 matvecs."""
+refinement (ed_mixed_matvec=always): large-sector Lanczos runs on a
+split-f32 matvec (MixedKronMatvec) and the converged subspace is
+re-diagonalized with exact f64 matvecs."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -67,9 +67,7 @@ def test_mixed_solve_matches_exact():
 
 
 def test_exact_ell_matvec_is_f64_exact():
-    """ExactKronMatvec (sparse-ELL f64 factor application — the TPU-fast
-    exact path; dense-f64 einsums are software-emulated at ~10 Gflop/s on
-    v5e) must match the dense f64 KronMatvec to f64 rounding, including
+    """ExactKronMatvec (sparse-ELL f64 factor application) must match the dense f64 KronMatvec to f64 rounding, including
     phonon and nonlocal terms."""
     from edipack_tpu.ops.matvec import ExactKronMatvec
     from edipack_tpu.sectors import SectorTable
